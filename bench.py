@@ -1,5 +1,5 @@
 """Driver entry point: delegates to the packaged benchmark
-(defl_tpu/bench.py; `defl-tpu-bench` / `python -m defl_tpu.bench` after
+(defl_jax/bench.py; `defl-jax-bench` / `python -m defl_jax.bench` after
 pip install).  Prints ONE JSON line with the headline inflate GB/s."""
 
 import os
@@ -7,7 +7,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from defl_tpu.bench import main
+from defl_jax.bench import main
 
 if __name__ == "__main__":
     main()

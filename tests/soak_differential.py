@@ -64,13 +64,13 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from defl_tpu.bench import make_silesia_like
-    from defl_tpu.core.oracle import InflateEngine
-    from defl_tpu.errors import Result
-    from defl_tpu.ops.inflate_batch import decode_tokens, step_budget
-    from defl_tpu.runtime import native
-    from defl_tpu.runtime.large import inflate_large
-    from defl_tpu.runtime.pack import pack_streams
+    from defl_jax.bench import make_silesia_like
+    from defl_jax.core.oracle import InflateEngine
+    from defl_jax.errors import Result
+    from defl_jax.ops.inflate_batch import decode_tokens, step_budget
+    from defl_jax.runtime import native
+    from defl_jax.runtime.large import inflate_large
+    from defl_jax.runtime.pack import pack_streams
 
     blocks = make_silesia_like(8 << 20, 65536)
     t_end = time.time() + budget_s

@@ -18,8 +18,8 @@ import zlib
 
 import pytest
 
-from defl_tpu.api import InflateStream
-from defl_tpu.errors import FLAG_ZLIB, Result
+from defl_jax.api import InflateStream
+from defl_jax.errors import FLAG_ZLIB, Result
 from tests.gendata import make_corpus
 
 CORPUS = make_corpus()
@@ -119,7 +119,7 @@ def test_one_shot_takes_native_fast_path():
     """A fresh contiguous run() must route through the C++ engine (≙ the
     reference's infl_buf being its fastest path, infl.h:125-145) and
     agree with the oracle engine on output AND input_pos accounting."""
-    from defl_tpu.runtime import native
+    from defl_jax.runtime import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -132,7 +132,7 @@ def test_one_shot_takes_native_fast_path():
         assert st.native_path_used
         # oracle twin for parity (forced off the fast path via dictionary
         # arg being absent is not enough: drive the engine directly)
-        from defl_tpu.core.oracle import InflateEngine
+        from defl_jax.core.oracle import InflateEngine
 
         eng = InflateEngine(_cap(payload))
         eng.include(comp)
@@ -145,7 +145,7 @@ def test_native_fast_path_preserves_resumable_semantics():
     """Non-OK one-shots (truncated input, small capacity) must stay on the
     resumable oracle engine: UNFINISHED + more input, EFULL +
     resize_output both continue correctly after a failed fast path."""
-    from defl_tpu.runtime import native
+    from defl_jax.runtime import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -174,8 +174,8 @@ def test_metrics_counters_wired():
     entry points run."""
     import zlib as _z
 
-    from defl_tpu import metrics
-    from defl_tpu.api import inflate_buffer
+    from defl_jax import metrics
+    from defl_jax.api import inflate_buffer
 
     metrics.reset()
     payload = CORPUS["text"]

@@ -1,6 +1,7 @@
 """Device (JAX) batched inflate: bit-exact parity with the oracle/zlib.
 
-Runs on the CPU backend (conftest forces it); identical code runs on TPU.
+Runs on the CPU backend (conftest's default); identical code runs on the
+GPU.
 Shapes are kept inside one compile bucket (C=1024) so the lockstep decoder
 compiles once per test session.
 """
@@ -9,8 +10,8 @@ import zlib
 
 import pytest
 
-from defl_tpu.errors import FLAG_ZLIB, Result
-from defl_tpu.runtime.session import batch_inflate, device_inflate
+from defl_jax.errors import FLAG_ZLIB, Result
+from defl_jax.runtime.session import batch_inflate, device_inflate
 from tests.gendata import edge_streams, make_corpus
 
 CORPUS = make_corpus()
@@ -152,7 +153,7 @@ def test_fdict_without_dictionary_errors():
 
 
 def test_our_encoder_device_roundtrip():
-    from defl_tpu.api import deflate_buffer
+    from defl_jax.api import deflate_buffer
 
     payloads = [CORPUS["period_3"][:800], CORPUS["unicode"][:600]]
     streams = [deflate_buffer(p, level=6) for p in payloads]
@@ -180,9 +181,9 @@ def test_input_pos_accounting_device():
 
 
 def test_host_resolve_parity():
-    """Hybrid pipeline (TPU pass-1 + C++ pass-2) must match the device
+    """Hybrid pipeline (device pass-1 + C++ pass-2) must match the device
     resolver bit for bit, including dictionary back-references."""
-    from defl_tpu.runtime.native import available
+    from defl_jax.runtime.native import available
 
     if not available():
         pytest.skip("native library unavailable")
@@ -211,7 +212,7 @@ def test_adler32_batch_device():
     import numpy as np
     import jax.numpy as jnp
 
-    from defl_tpu.ops.checksums import adler32_batch
+    from defl_jax.ops.checksums import adler32_batch
 
     rng = np.random.default_rng(1)
     lens = np.array([0, 1, 100, 3072, 3073, 8191], np.int32)
@@ -226,7 +227,7 @@ def test_adler32_batch_device():
 def test_verify_adler32_device():
     """FLAG_VERIFY_ADLER32 on the device path (extension; the reference
     never checks the trailer)."""
-    from defl_tpu.errors import FLAG_VERIFY_ADLER32
+    from defl_jax.errors import FLAG_VERIFY_ADLER32
 
     p = CORPUS["text"][:600]
     good = zlib.compress(p, 6)
@@ -262,21 +263,3 @@ def test_step_budget_exhaustion_falls_back_to_host():
     assert outs[0] == b"Z"
     assert res[1] is Result.ERR or res[1] is Result.OK  # good is zlib-wrapped
 
-
-def test_adler32_pallas_kernel():
-    """Pallas batched adler32 (interpret mode on the CPU backend; the
-    same kernel compiles via Mosaic on TPU)."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from defl_tpu.ops.pallas.checksums_pl import adler32_batch_pallas
-
-    rng = np.random.default_rng(3)
-    lens = np.array([0, 5, 3071, 3072, 6144], np.int32)
-    data = np.zeros((5, 6144), np.uint8)
-    for i, L in enumerate(lens):
-        data[i, :L] = rng.integers(0, 256, L, dtype=np.uint8)
-    got = np.asarray(adler32_batch_pallas(jnp.asarray(data),
-                                          jnp.asarray(lens), interpret=True))
-    for i in range(5):
-        assert int(got[i]) == zlib.adler32(data[i, : lens[i]].tobytes()), i

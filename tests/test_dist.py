@@ -13,9 +13,9 @@ import jax
 import numpy as np
 import pytest
 
-from defl_tpu.errors import Result
-from defl_tpu.parallel.mesh import make_host_chip_mesh, make_stream_mesh
-from defl_tpu.parallel.shard import DistributedCodec
+from defl_jax.errors import Result
+from defl_jax.parallel.mesh import make_host_chip_mesh, make_stream_mesh
+from defl_jax.parallel.shard import DistributedCodec
 from tests.gendata import make_corpus
 
 CORPUS = make_corpus()
@@ -128,7 +128,7 @@ def test_scaling_measurement_runs():
     machinery not adding gross overhead over raw device_inflate.  Exact
     efficiency is recorded by bench.py (BENCH fields shard8_speedup /
     dist_overhead_pct); hard >=85% assertions need real chips."""
-    from defl_tpu.bench_scaling import measure, measure_overhead
+    from defl_jax.bench_scaling import measure, measure_overhead
 
     m = measure(n_streams=64, block=4096, reps=2)
     assert m["scaling_n_devices"] == 8

@@ -11,8 +11,8 @@ import zlib
 
 import pytest
 
-from defl_tpu.api import deflate_buffer, inflate_buffer
-from defl_tpu.errors import FLAG_ZLIB
+from defl_jax.api import deflate_buffer, inflate_buffer
+from defl_jax.errors import FLAG_ZLIB
 from tests.gendata import make_corpus
 
 CORPUS = make_corpus()
@@ -105,8 +105,8 @@ def test_incompressible_uses_stored():
 def test_size_beats_zlib6_on_bench_mix():
     """North-star size gate (BASELINE.md: encode <= zlib-level-6 size) on
     the bench corpus mix — the aggregate that bench.py reports."""
-    from defl_tpu.bench import make_silesia_like
-    from defl_tpu.runtime import native
+    from defl_jax.bench import make_silesia_like
+    from defl_jax.runtime import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -128,7 +128,7 @@ def test_encoder_fuzz_sequence_dependent():
     given the same preceding call sequence."""
     import random
 
-    from defl_tpu.runtime import native
+    from defl_jax.runtime import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -152,10 +152,10 @@ def test_encoder_fuzz_sequence_dependent():
 
 
 class TestDeviceDeflate:
-    """Hybrid TPU encode (host LZ77 + trees -> device Huffman bit-pack).
+    """Hybrid device encode (host LZ77 + trees -> device Huffman bit-pack).
 
     Fills the encode half the reference never implements
-    (include/defl/defl.h:17-25) TPU-natively: dt_deflate_fields_batch
+    (include/defl/defl.h:17-25): dt_deflate_fields_batch
     exports (value, nbits) fields, ops/huffman_pack.pack_fields
     concatenates them lane-parallel on device."""
 
@@ -168,8 +168,8 @@ class TestDeviceDeflate:
                    rng.randbytes(64) * 500])
 
     def test_byte_identical_to_host_encoder(self):
-        from defl_tpu.runtime import native
-        from defl_tpu.runtime.session import device_deflate
+        from defl_jax.runtime import native
+        from defl_jax.runtime.session import device_deflate
 
         if not native.available():
             pytest.skip("native library unavailable")
@@ -182,8 +182,8 @@ class TestDeviceDeflate:
         assert st["device_fallbacks"] == []
 
     def test_roundtrip_and_raw_mode(self):
-        from defl_tpu.runtime import native
-        from defl_tpu.runtime.session import device_deflate
+        from defl_jax.runtime import native
+        from defl_jax.runtime.session import device_deflate
 
         if not native.available():
             pytest.skip("native library unavailable")
@@ -194,8 +194,8 @@ class TestDeviceDeflate:
                 assert zlib.decompress(o, wbits) == p
 
     def test_batch_api_device_backend(self):
-        from defl_tpu.api import deflate_batch
-        from defl_tpu.runtime import native
+        from defl_jax.api import deflate_batch
+        from defl_jax.runtime import native
 
         if not native.available():
             pytest.skip("native library unavailable")
@@ -207,7 +207,7 @@ class TestDeviceDeflate:
 
 class TestDeflateStream:
     def test_streaming_compress_roundtrip(self):
-        from defl_tpu.core.deflate_ref import DeflateStream
+        from defl_jax.core.deflate_ref import DeflateStream
 
         payload = (CORPUS["text"] + CORPUS["png_simulation"]) * 8  # ~1.8MB
         st = DeflateStream(level=6)
@@ -223,14 +223,14 @@ class TestDeflateStream:
         assert len(out) <= len(one_shot) * 1.05
 
     def test_empty_stream(self):
-        from defl_tpu.core.deflate_ref import DeflateStream
+        from defl_jax.core.deflate_ref import DeflateStream
 
         st = DeflateStream()
         out = st.compress(b"") + st.flush()
         assert zlib.decompress(out) == b""
 
     def test_compress_after_flush_rejected(self):
-        from defl_tpu.core.deflate_ref import DeflateStream
+        from defl_jax.core.deflate_ref import DeflateStream
 
         st = DeflateStream()
         st.flush()
@@ -239,7 +239,7 @@ class TestDeflateStream:
             st.compress(b"x")
 
     def test_streaming_with_dictionary(self):
-        from defl_tpu.core.deflate_ref import DeflateStream
+        from defl_jax.core.deflate_ref import DeflateStream
 
         d = b"shared words appear early " * 40
         st = DeflateStream(dictionary=d)

@@ -13,8 +13,8 @@ import zlib
 
 import pytest
 
-from defl_tpu.core.oracle import inflate_oracle
-from defl_tpu.errors import FLAG_ZLIB, Result
+from defl_jax.core.oracle import inflate_oracle
+from defl_jax.errors import FLAG_ZLIB, Result
 from tests.gendata import make_corpus
 
 CORPUS = make_corpus()
@@ -59,7 +59,7 @@ def test_oracle_fuzz_no_crash(seed):
 @pytest.mark.needs_jax
 def test_cross_engine_agreement_device():
     """Oracle vs device decoder on fuzz cases."""
-    from defl_tpu.runtime.session import device_inflate
+    from defl_jax.runtime.session import device_inflate
 
     cases = _gen_cases(7, 48)
     oracle_res = [inflate_oracle(d, FLAG_ZLIB, CAP) for d in cases]
@@ -75,7 +75,7 @@ def test_cross_engine_agreement_device():
 def test_cross_engine_agreement_native():
     """Oracle vs C++ engine on fuzz cases (runs under the sanitizer
     preload too — this is the ASan-audited agreement check)."""
-    from defl_tpu.runtime.native import available, native_inflate
+    from defl_jax.runtime.native import available, native_inflate
 
     if not available():
         pytest.skip("native library unavailable")
@@ -90,7 +90,7 @@ def test_cross_engine_agreement_native():
 
 @pytest.mark.needs_jax
 def test_fuzz_raw_mode_device():
-    from defl_tpu.runtime.session import device_inflate
+    from defl_jax.runtime.session import device_inflate
 
     rng = random.Random(11)
     cases = [rng.randbytes(rng.randrange(1, 120)) for _ in range(24)]
@@ -112,7 +112,7 @@ def test_fuzz_raw_mode_device():
 
 import numpy as np
 
-from defl_tpu.runtime import native
+from defl_jax.runtime import native
 
 
 def _need_native():

@@ -9,7 +9,7 @@ construction, and the vectorised device builder against the host one.
 import numpy as np
 import pytest
 
-from defl_tpu.core import huffman
+from defl_jax.core import huffman
 
 
 def test_reject_length_over_15():
@@ -68,7 +68,7 @@ def test_device_builder_matches_host():
     """ops.tables.build_canonical (vectorised) vs core.huffman (host)."""
     import jax.numpy as jnp
 
-    from defl_tpu.ops import tables
+    from defl_jax.ops import tables
 
     rng = np.random.default_rng(9)
     batch = []
@@ -93,7 +93,7 @@ def test_device_builder_matches_host():
 def test_device_builder_flags_oversubscription():
     import jax.numpy as jnp
 
-    from defl_tpu.ops import tables
+    from defl_jax.ops import tables
 
     lens = np.zeros((2, 8), np.int32)
     lens[0, :3] = 1          # oversubscribed

@@ -3,20 +3,19 @@
 The reference handles any-length streams serially (infl.c:1507-1675);
 here huge streams split at speculatively-found block boundaries.  These
 tests cover the native block finder, the span decoder, the serial stitch
-path, and the batch-API routing; the device-lane path needs a TPU
-(DEFL_TEST_TPU=1 — bench exercises it at scale).
+path, and the batch-API routing; the device-lane path at scale runs on
+the GPU (``@pytest.mark.gpu``, run by chip_smoke.py).
 """
 
-import os
 import zlib
 
 import numpy as np
 import pytest
 
-from defl_tpu import bench as B
-from defl_tpu.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB, Result
-from defl_tpu.runtime import native
-from defl_tpu.runtime.large import SEGMENT_BYTES, _find_candidates, inflate_large
+from defl_jax import bench as B
+from defl_jax.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB, Result
+from defl_jax.runtime import native
+from defl_jax.runtime.large import SEGMENT_BYTES, _find_candidates, inflate_large
 
 needs_native = pytest.mark.skipif(not native.available(),
                                   reason="native library unavailable")
@@ -76,7 +75,7 @@ def test_inflate_large_caller_buffer():
     assert r is Result.EFULL and n <= 1000
     assert raw[:n] == small[:n].tobytes()
     # serial native engine takes a caller buffer too
-    from defl_tpu.runtime.native import native_inflate
+    from defl_jax.runtime.native import native_inflate
 
     r, n = native_inflate(comp, len(raw), out=buf)
     assert r is Result.OK and buf[:n].tobytes() == raw
@@ -105,14 +104,14 @@ def test_inflate_large_efull():
 
 @needs_native
 def test_batch_inflate_routes_big_streams():
-    from defl_tpu.runtime.session import batch_inflate
+    from defl_jax.runtime.session import batch_inflate
 
     big_raw = _big_payload(12)   # ~4.9MB compressed: over the lane limit
     small_raw = b"small payload " * 100
     streams = [zlib.compress(small_raw, 6), zlib.compress(big_raw, 6),
                zlib.compress(small_raw, 6)]
     # backend="auto" must route the >4MB stream through the large path
-    # (device lanes on TPU, serial stitch elsewhere) without refusing
+    # without refusing
     results, outputs = batch_inflate(streams, backend="auto")
     assert [r for r in results] == [Result.OK] * 3
     assert outputs == [small_raw, big_raw, small_raw]
@@ -180,8 +179,7 @@ def test_host_parallel_efull_retry_reuses_tokens():
     assert out_big.tobytes() == raw
 
 
-@pytest.mark.skipif(os.environ.get("DEFL_TEST_TPU") != "1",
-                    reason="device lane path needs a TPU")
+@pytest.mark.gpu
 def test_inflate_large_device_lanes():
     raw = _big_payload(8)
     comp = zlib.compress(raw, 6)
@@ -242,7 +240,7 @@ def test_device_route_allowed_boundary():
     # int32 global bit cursors: just-under-256MB bodies may ride the
     # device engine; anything at/over the guarded bound must not
     # (VERDICT r3 weak #6: the cap was silent and untested)
-    from defl_tpu.runtime.large import device_route_allowed
+    from defl_jax.runtime.large import device_route_allowed
 
     bound = ((1 << 31) - (1 << 22)) // 8
     assert device_route_allowed(bound - 1)
@@ -256,7 +254,7 @@ def test_inflate_large_oversize_body_reroutes_to_host(monkeypatch):
     # the host-parallel engine even under use_device=True — and still be
     # byte-exact.  The limit is forced low so the test doesn't need a
     # real 256MB stream.
-    import defl_tpu.runtime.large as large_mod
+    import defl_jax.runtime.large as large_mod
 
     raw = _big_payload(2)
     comp = zlib.compress(raw, 6)

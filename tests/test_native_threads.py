@@ -15,8 +15,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 
-from defl_tpu.errors import Result
-from defl_tpu.runtime import native
+from defl_jax.errors import Result
+from defl_jax.runtime import native
 from tests.gendata import make_corpus
 
 CORPUS = make_corpus()

@@ -9,8 +9,8 @@ import zlib
 
 import pytest
 
-from defl_tpu.core.oracle import InflateEngine, inflate_oracle
-from defl_tpu.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB, Result
+from defl_jax.core.oracle import InflateEngine, inflate_oracle
+from defl_jax.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB, Result
 from tests.gendata import BitWriter, compress_variants, edge_streams, make_corpus
 
 CORPUS = make_corpus()
@@ -236,7 +236,7 @@ def test_noop_like_empty_then_data():
 
 
 def test_checksums_against_zlib():
-    import defl_tpu.core.checksums as cks
+    import defl_jax.core.checksums as cks
 
     for name in ("empty", "text", "rand_4095", "zeros_65536"):
         data = CORPUS[name]

@@ -1,6 +1,6 @@
 """Overlapped decode‖resolve pipeline (runtime/pipeline.py) on CPU.
 
-The perf shape is benchmarked on TPU (bench.py phase 3); these tests
+The perf shape is benchmarked on the GPU (bench.py phase 3); these tests
 cover correctness plumbing: per-batch results, sink consumption, and the
 host retry of step-budget-exhausted lanes.
 """
@@ -9,9 +9,9 @@ import zlib
 
 import pytest
 
-from defl_tpu.errors import Result
-from defl_tpu.runtime import native
-from defl_tpu.runtime.pipeline import pipeline_inflate
+from defl_jax.errors import Result
+from defl_jax.runtime import native
+from defl_jax.runtime.pipeline import pipeline_inflate
 
 needs_native = pytest.mark.skipif(not native.available(),
                                   reason="native library unavailable")

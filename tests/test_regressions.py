@@ -16,9 +16,9 @@ import zlib
 import numpy as np
 import pytest
 
-from defl_tpu.core.oracle import inflate_oracle
-from defl_tpu.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB, Result
-from defl_tpu.runtime import native
+from defl_jax.core.oracle import inflate_oracle
+from defl_jax.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB, Result
+from defl_jax.runtime import native
 from tests.gendata import BitWriter
 
 needs_native = pytest.mark.skipif(not native.available(),
@@ -88,7 +88,7 @@ def test_invalid_code_vs_need_input_native():
 
 @pytest.mark.needs_jax
 def test_invalid_code_vs_need_input_device():
-    from defl_tpu.runtime.session import device_inflate
+    from defl_jax.runtime.session import device_inflate
 
     res, _, _ = device_inflate([_incomplete_code_truncated()], flags=0,
                                dst_capacities=64)
@@ -101,7 +101,7 @@ def test_no_capacity_high_ratio_full_output():
     # resume ON DEVICE via revive_carry with a grown budget (≙
     # infl_resize_output-then-continue, mem.c:277-288) — zero host
     # fallbacks — and deliver the complete output.
-    from defl_tpu.runtime.session import device_inflate
+    from defl_jax.runtime.session import device_inflate
 
     raw = b"\0" * 100_000
     res, outs, stats = device_inflate([zlib.compress(raw)],
@@ -137,7 +137,7 @@ def test_shared_refill_window_words_exact():
     # bit-exactly through whatever the refill's plane format is.
     import jax.numpy as jnp
 
-    from defl_tpu.ops import inflate_batch as ib
+    from defl_jax.ops import inflate_batch as ib
 
     rng = np.random.default_rng(0)
     W = 220_000
@@ -167,7 +167,7 @@ def test_resolver_literal_on_last_row_byte():
     # literal tokens by the PAIR width (p + 2 > row_cap), truncating the
     # final byte of any capacity-exact lane whose last token is a single
     # literal (1638/8192 bench lanes).  Bound by the token's actual width.
-    from defl_tpu.runtime.native import native_resolve_tokens
+    from defl_jax.runtime.native import native_resolve_tokens
 
     C = 64
     # 62 bytes via 31 pair-literals, a single literal at byte 62, then

@@ -8,8 +8,8 @@ import zlib
 
 import pytest
 
-from defl_tpu.errors import Result
-from defl_tpu.runtime.stream_device import DeviceInflateSession
+from defl_jax.errors import Result
+from defl_jax.runtime.stream_device import DeviceInflateSession
 from tests.gendata import make_corpus
 
 CORPUS = make_corpus()
